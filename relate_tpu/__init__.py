@@ -1,4 +1,4 @@
-"""relate-tpu: a TPU-native genealogy-inference framework.
+"""relate-tpu: a genealogy-inference framework in JAX.
 
 Re-implements the capabilities of Relate (Speidel et al., Nature Genetics 2019;
 reference C++ at MyersGroup/relate) as an idiomatic JAX/XLA/Pallas framework:
@@ -25,22 +25,25 @@ import os as _os
 def _enable_compilation_cache():
     """Persistent XLA compilation cache (opt out: RELATE_TPU_CACHE=0).
 
-    The painting/topology kernels take minutes to compile for a new panel
-    shape; caching makes repeat runs (and multi-process pipelines) start in
-    seconds."""
+    The painting/topology programs take a while to compile for a new panel
+    shape; caching makes repeat runs (and multi-process pipelines) start
+    faster. Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself
+    and no other directory is set here; otherwise the cache is the fixed
+    ``.jax_cache/`` of this checkout (a fixed path, so entries are found
+    again)."""
     if _os.environ.get("RELATE_TPU_CACHE", "1") == "0":
         return
-    try:
-        import jax
-        cache_dir = _os.environ.get(
-            "RELATE_TPU_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "relate_tpu_jax"))
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    import jax
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", cache_dir())
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+
+
+def cache_dir() -> str:
+    """The compile-cache directory this package uses."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
 
 
 _enable_compilation_cache()

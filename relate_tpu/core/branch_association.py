@@ -5,11 +5,11 @@ Behavioral reference: ``AncesTreeBuilder::BranchAssociation``
 (``include/src/anc.cpp:821-860``) and the forward/backward propagation
 ``AssociateTrees`` (anc_builder.cpp:658-818).
 
-TPU-native core: all pairwise leaf-set intersections of two trees are one
+Device core: all pairwise leaf-set intersections of two trees are one
 ``(2N-1, N) @ (N, 2N-1)`` matmul; ``branch_association_many`` batches these
 matmuls over all adjacent tree pairs of a chunk on device (the 0/1
-intersection counts are integers < 2^24, so a float32 MXU matmul is exact
-and the result is bit-identical to the host float64 path). The matching
+intersection products are 0/1, exact in any matmul precision including
+TF32, and the f32 sums are integers < 2^24, so the result is bit-identical to the host float64 path). The matching
 stages are vectorized numpy over the (M, M) correlation matrix; only the
 final greedy assignment over the (tiny) above-threshold candidate list is
 a host loop. ``branch_association_reference`` keeps the direct loop

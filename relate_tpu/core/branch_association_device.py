@@ -8,10 +8,11 @@ Behavioral reference: ``AncesTreeBuilder::BranchAssociation``
 ``branch_association.py`` (its ``_match_from_corr`` is the differential
 oracle; see tests/test_ancbuilder.py).
 
-TPU mapping: leaf-set indicators are built on device by log-squaring the
-child adjacency matrix on the MXU (``_leafmats``), all pairwise leaf-set
-intersections are one batched (M, N) @ (N, M) float32 MXU matmul per pair
-(0/1 counts < 2^24 are exact), and the three matching stages are
+Device mapping: leaf-set indicators are built on device by log-squaring the
+child adjacency matrix (``_leafmats``), all pairwise leaf-set
+intersections are one batched (M, N) @ (N, M) matmul per pair (0/1
+operands are exact in any matmul precision, TF32 included, and f32 sums
+of them are exact below 2^24), and the three matching stages are
 vectorized masks + scatter-max. The reference's best-score-first greedy
 assignment of approximate matches is computed exactly by iterated
 locally-dominant locking (mutual row/column best under the greedy total
@@ -35,12 +36,13 @@ from .trees import Tree
 def _leafmats(parent, cl, cr, N):
     """(B, M) parent/children arrays -> (B, M, N) f32 leaf indicators.
 
-    Descendant closure by log-squaring on the MXU: P0 = I + child
+    Descendant closure by log-squaring: P0 = I + child
     adjacency, then ceil(log2(M)) rounds of ``P = min(P @ P, 1)`` cover
     every path length. Only zero-vs-nonzero matters, so the matmuls run
     in bfloat16 (a sum of positive bf16 terms is never rounded to zero
     and an exact zero stays zero); the per-level gather loop this
-    replaces cost ~40x more HBM traffic than these 9 batched matmuls."""
+    replaces moved far more device memory than these 9 batched
+    matmuls."""
     import jax
     import jax.numpy as jnp
 
@@ -237,7 +239,8 @@ def branch_association_many_device(trees: List[Tree],
 
     The chunk is sized from device memory: each pair holds an (M, N)
     leaf matrix and an (M, M) correlation product on device
-    (~100 MB/pair at N=2048 — a fixed 256-pair chunk OOM'd 16 GB HBM)."""
+    (~100 MB/pair at N=2048, so a fixed pair count would not fit every
+    card)."""
     T = len(trees)
     if T < 2:
         return []

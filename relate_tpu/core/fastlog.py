@@ -3,8 +3,8 @@
 The reference uses a polynomial float32 log approximation in every hot loop
 (``include/src/fast_log.hpp:6-21``). Replicating it bit-for-bit keeps the
 distance matrices (and thus tree-builder decisions) numerically aligned with
-the C++ oracle in differential tests. On TPU this is also *faster* than a
-transcendental log: it is two bitcasts and a fused polynomial on the VPU.
+the C++ oracle in differential tests. It is two bitcasts and a fused
+polynomial, which XLA fuses into the surrounding elementwise work.
 """
 from __future__ import annotations
 

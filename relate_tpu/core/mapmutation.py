@@ -4,9 +4,9 @@ Behavioral reference: ``AncesTreeBuilder::MapMutation`` /
 ``PropagateMutationGlobal`` / ``PropagateMutationLocal``
 (``include/src/anc_builder.cpp:981-1413``).
 
-TPU-native reformulation: the reference's per-SNP recursive tree walk becomes
+Device reformulation: the reference's per-SNP recursive tree walk becomes
 a batched computation. Carrier counts per clade for a *block* of SNPs are one
-matmul ``leaf_matrix (2N-1, N) @ carriers (N, B)`` (MXU work), the placement
+matmul ``leaf_matrix (2N-1, N) @ carriers (N, B)``, the placement
 conditions are elementwise, and the reference's tie-breaking recursion
 ("descendant beats ancestor, left subtree beats right") is exactly an argmin
 over (mismatch count, post-order index).

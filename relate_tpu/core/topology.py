@@ -14,7 +14,7 @@ Behavioral reference: ``AncesTreeBuilder::BuildTopology``
 4. non-mappable SNPs get the multi-branch force-mapping
    (``is_not_mapping`` in the .mut output).
 
-TPU-native batching: mapping is evaluated for *blocks* of SNPs against the
+Device batching: mapping is evaluated for *blocks* of SNPs against the
 current tree in one call (matmul over the clade matrix); the sequential
 dependency only re-enters at rebuild SNPs, so device work is proportional to
 the number of trees, not the number of SNPs.

@@ -1,13 +1,16 @@
 """Fully device-resident BuildTopology: one dispatch per section.
 
 The host-driven builder (``topology.py``) replicates the reference's
-control flow with host/device round-trips at every rebuild; over a remote
-TPU link each round-trip costs ~100ms, which dwarfs the compute. This module
+control flow with a host/device round trip at every rebuild. This module
 compiles the ENTIRE per-section SNP loop — mutation mapping, rebuild
 decision, distance assembly, same-rpos/clade priors, the MinMatch merge
 scan, accept/revert bookkeeping — into a single two-level ``lax.scan``
-program (64-SNP blocks whose carrier counts come from one MXU matmul each),
+program (64-SNP blocks whose carrier counts come from one matmul each),
 so a section is one device call regardless of length.
+
+Matrix products here multiply 0/1 clade and carrier indicators: every
+product and partial sum is a small integer, exact in TF32 and bf16 inputs
+with f32 accumulation, so the default matmul precision is exact.
 
 Semantics follow ``AncesTreeBuilder::BuildTopology``
 (include/src/anc_builder.cpp:397-656) like topology.py, with one
@@ -57,11 +60,10 @@ def _map_on_tree(leafmat, csize, car, tc, N, M, thr, cc=None):
 
     ``cc`` (the per-branch carrier counts ``leafmat @ car``) may be passed
     in precomputed — the section scan computes it for KB SNPs at a time in
-    one MXU matmul instead of re-streaming the (M, N) leafmat from HBM at
-    every step (at N=5008 that stream is 200MB x 2 per SNP and dominated
-    the whole build stage). Products/sums of 0/1 entries are exact in the
-    MXU's bf16xbf16->f32 path, so blocked and per-step results are
-    bit-identical.
+    one matmul instead of re-streaming the (M, N) leafmat from device
+    memory at every step (at N=5008 that stream is 200MB x 2 per SNP).
+    Products/sums of 0/1 entries are exact at any matmul precision, so
+    blocked and per-step results are bit-identical.
 
     Returns (is_mapping, branch, flipped, min_value)."""
     tnc = N - tc
@@ -178,20 +180,19 @@ def _merge_scan(d0, dcf0, use_cf, threshold, threshold_cf, key):
     return cis, cjs, clades
 
 
-def _pallas_available(N: int) -> bool:
-    try:
-        from ..ops.merge_scan import HAVE_PALLAS, MAX_N_INC
-    except Exception:
-        return False
-    return (HAVE_PALLAS and jax.default_backend() == "tpu"
-            and N <= MAX_N_INC)
+def use_merge_kernel(backend: Optional[str] = None) -> bool:
+    """Whether the section builder merges with the incremental kernel
+    (ops/merge_scan_inc.py): on a GPU, for every N; every other backend
+    runs the XLA twin."""
+    return (backend or jax.default_backend()) == "gpu"
 
 
 _KERNEL_CACHE: dict = {}
 
 
 def make_section_kernel(model_theta: float, N: int, L: int, mode: int,
-                        use_pallas: bool | None = None):
+                        use_kernel: Optional[bool] = None,
+                        interpret: bool = False):
     """Compile the full section builder as one jitted program (process-
     cached by the static configuration — a fresh jit per call re-traces
     and re-lowers the whole section scan, ~2s of host time each).
@@ -201,12 +202,14 @@ def make_section_kernel(model_theta: float, N: int, L: int, mode: int,
     ys are written in place, while large carry buffers updated inside
     lax.cond would be copied every step.
 
-    On TPU backends the merge scan runs as a fused Pallas kernel
-    (ops/merge_scan.py); elsewhere (or with use_pallas=False) the XLA
-    twin `_merge_scan` is used. Tie-break draws differ between the two
-    (seed-level noise either way).
+    The merge scan is the incremental kernel when ``use_kernel`` (default:
+    :func:`use_merge_kernel`), else the XLA twin `_merge_scan`. Tie-break
+    draws differ between the two (seed-level noise either way);
+    ``interpret`` runs the kernel in Pallas interpret mode (tests).
     """
-    ck = (float(model_theta), N, L, mode, use_pallas)
+    if use_kernel is None:
+        use_kernel = use_merge_kernel()
+    ck = (float(model_theta), N, L, mode, bool(use_kernel), interpret)
     cached = _KERNEL_CACHE.get(ck)
     if cached is not None:
         return cached
@@ -215,21 +218,18 @@ def make_section_kernel(model_theta: float, N: int, L: int, mode: int,
     thr_map = 0.03 * N
     threshold, threshold_cf = thresholds(model_theta)
     val = -float(np.log(model_theta / (1.0 - model_theta)))
-    use_cf_mode = jnp.bool_(mode == 1)
+    use_cf_mode = mode == 1
 
-    if use_pallas is None:
-        use_pallas = _pallas_available(N)
-    if use_pallas:
-        import os
-        from ..ops.merge_scan import merge_scan_pallas
-        interp = bool(os.environ.get("RELATE_TPU_PALLAS_INTERPRET"))
+    if use_kernel:
+        from ..ops.merge_scan_inc import merge_scan_incremental
 
         def _ms(mat, dcf, ucf, thr, thrcf, k):
             seed = jax.random.randint(k, (), 0, np.int32(2**31 - 1))
-            return merge_scan_pallas(mat, dcf, ucf, thr, thrcf, seed,
-                                     interpret=interp)
+            return merge_scan_incremental(mat, dcf, ucf, thr, thrcf, seed,
+                                          interpret=interpret)
     else:
-        _ms = _merge_scan
+        def _ms(mat, dcf, ucf, thr, thrcf, k):
+            return _merge_scan(mat, dcf, jnp.bool_(ucf), thr, thrcf, k)
 
     def kernel(topology, logscale, row0, rpos_prev0, car_mat, state_vec,
                force_vec, rpos_vec, nxt_mat, snps, valid_vec, first_mat0,
@@ -248,13 +248,12 @@ def make_section_kernel(model_theta: float, N: int, L: int, mode: int,
                                  wr.astype(jnp.float32), kcol)
 
         # SNPs are processed in blocks of KB: each block's per-branch
-        # carrier counts (leafmat @ car) are computed in ONE MXU matmul and
+        # carrier counts (leafmat @ car) are computed in ONE matmul and
         # refreshed only when a rebuild replaces the tree mid-block.
         # Per-step work then touches (M,) vectors instead of streaming the
-        # (M, N) leafmat from HBM twice per SNP — at N=5008 that stream is
-        # 2 x 200MB per step and dominated the whole build stage. The 0/1
-        # operands make the bf16 MXU path exact, so results are
-        # bit-identical to the per-step formulation.
+        # (M, N) leafmat from device memory twice per SNP (2 x 200MB per
+        # step at N=5008). The 0/1 operands keep every matmul precision
+        # exact, so results are bit-identical to the per-step formulation.
         KB = 64
 
         def inner_step(cext, xs):
@@ -349,7 +348,7 @@ def make_section_kernel(model_theta: float, N: int, L: int, mode: int,
 
         # first tree: plain build from the start-SNP matrix
         cis, cjs, clades = _ms(
-            first_mat0, jnp.zeros_like(first_mat0), jnp.bool_(False),
+            first_mat0, jnp.zeros_like(first_mat0), False,
             jnp.float32(threshold), jnp.float32(threshold_cf),
             jax.random.fold_in(key, 0))
         leafmat = jnp.concatenate([jnp.eye(N, dtype=jnp.float32), clades],

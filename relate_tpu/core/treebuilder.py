@@ -3,8 +3,8 @@
 Behavioral reference: ``MinMatch::QuickBuild``
 (``include/src/tree_builder.cpp:1061-1303,2357-2644``). The C++ maintains
 per-row candidate caches updated incrementally (a CPU optimization); the
-TPU-native formulation recomputes the selection criterion each merge step as
-masked matrix reductions on the VPU, which vectorizes over a *batch of trees*
+device formulation recomputes the selection criterion each merge step as
+masked matrix reductions, which vectorizes over a *batch of trees*
 (the per-tree merge loop is sequential, the tree axis is the parallel one).
 
 Selection semantics per merge step (N-1 steps):

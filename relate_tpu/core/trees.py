@@ -1,7 +1,7 @@
 """Array-based marginal-tree structures.
 
 The reference uses pointer-linked ``Node``/``Tree`` objects
-(``include/src/anc.hpp:21-254``). The TPU-native layout is flat arrays over
+(``include/src/anc.hpp:21-254``). The layout here is flat arrays over
 2N-1 nodes — leaves 0..N-1, internal nodes N..2N-2 in coalescence order, root
 = 2N-2 — so whole *batches* of trees vmap/shard naturally:
 

@@ -7,7 +7,7 @@ MCMC on a final .anc/.mut under a .coal prior; SampleBranchLengths
 ``1000*max(N/10,10)``, :683) after an initial converged run, writing
 per-sample anc/mut, newick, or the binary .timeb format.
 
-TPU-native: all trees sample in lockstep (vmapped chains); a sample is a
+On the device, all trees sample in lockstep (vmapped chains); a sample is a
 device snapshot of the coordinate vectors.
 """
 from __future__ import annotations

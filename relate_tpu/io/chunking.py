@@ -11,9 +11,9 @@ Replicates the semantics of ``Data::MakeChunks`` (``include/src/data.cpp:117-518
   (``data.cpp:129,219-229``), with at most 500 windows per chunk
   (``data.cpp:134``) and at least 10 SNPs per window.
 
-On TPU, a chunk maps to a per-host shard (DCN axis) and a window to a
-per-device work unit (ICI axis); the window memory model bounds the size of
-the painting posterior tensor that must live in HBM at once.
+A chunk maps to a per-host shard and a window to a per-device work unit;
+the window memory model bounds the size of the painting posterior tensor
+that must live in device memory at once.
 
 Artifacts are stored as ``.npz`` under an output directory, mirroring the
 reference's staged-file recovery model (every stage restartable from disk).
@@ -71,7 +71,7 @@ class WindowPlan:
 def plan_chunks_and_windows(G: np.ndarray, memory_gb=None):
     """Compute chunk boundaries and per-chunk window boundaries.
 
-    ``memory_gb=None`` sizes the budget from the actual device HBM
+    ``memory_gb=None`` sizes the budget from the actual device memory
     (utils.devmem.auto_memory_gb) instead of the reference's fixed 5 GB
     default, which OOMs a 16 GB chip at N>=2048.
 

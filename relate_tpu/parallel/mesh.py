@@ -4,14 +4,14 @@ The reference's entire distributed story is shell-level job arrays over a
 shared filesystem (SURVEY §2.5: chunks x sections via SGE/Slurm/LSF, with
 "write per-shard matrices, sum in a finalize step" as the all-reduce;
 scripts/RelateParallel/RelateParallel.sh:231-396,
-scripts/RelateSGE/RelateSGE.sh:208-520). The TPU-native replacement:
+scripts/RelateSGE/RelateSGE.sh:208-520). The replacement here:
 
 - **targets axis** (haplotypes being painted): embarrassingly parallel —
-  sharded across devices over ICI; each device paints its target shard
-  against the replicated genotype panel.
+  sharded across the devices of a host; each device paints its target
+  shard against the replicated genotype panel.
 - **trees axis** (branch-length MCMC chains): independent chains, sharded
   across devices.
-- **chunks axis** (genome): data-parallel across hosts (DCN); artifacts
+- **chunks axis** (genome): data-parallel across hosts; artifacts
   merged at host 0 in Finalize.
 - **reductions** (coalescence count/opportunity matrices, EM sufficient
   statistics): ``psum`` inside ``shard_map`` over the device mesh instead
@@ -38,11 +38,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
 
 from ..core import mcmc, painting
 from ..core.trees import Tree
@@ -110,7 +105,7 @@ def coalescence_counts_psum(mesh: Mesh, ages, epochs, axis: str = "shard"):
     epochs = jax.device_put(jnp.asarray(epochs), NamedSharding(mesh, P()))
 
     @jax.jit
-    @partial(_shard_map, mesh=mesh, in_specs=(P(axis), P()), out_specs=P())
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P(axis), P()), out_specs=P())
     def reduce_counts(a, ep):
         e = jnp.searchsorted(ep, a, side="right") - 1
         onehot = jax.nn.one_hot(e, ep.shape[0], dtype=jnp.float32)

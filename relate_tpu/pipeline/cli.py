@@ -32,7 +32,7 @@ def build_parser():
     p.add_argument("-o", "--output", required=True)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--memory", type=float, default=None,
-                   help="window-planner budget in GB; default: sized from device HBM")
+                   help="window-planner budget in GB; default: sized from device memory")
     p.add_argument("--theta", type=float, default=0.001)
     p.add_argument("--coal")
     p.add_argument("--annot")
@@ -56,8 +56,8 @@ def build_parser():
     # (the run_all layout); the per-stage flow passes the MakeChunks -o dir
     p.add_argument("--store")
     # shard device work (painting targets, MCMC tree batches) over the
-    # first N jax devices — the TPU replacement for RelateParallel.sh
-    # --threads (SURVEY §2.5)
+    # first N jax devices (one process drives them all) — the replacement
+    # for RelateParallel.sh --threads (SURVEY §2.5)
     p.add_argument("--devices", type=int, default=0)
     # host thread pool over chunks (RelateParallel.sh --threads): chunk
     # stages overlap host-bound work with device dispatches

@@ -6,7 +6,7 @@ All at :257-287) and the per-mode sources. Stages communicate through the
 ArtifactStore (filesystem), mirroring the reference's restartable staged-file
 design; each stage is independently callable (resume = rerun a stage).
 
-TPU mapping: Paint and BuildTopology run their device work batched per
+Device mapping: Paint and BuildTopology run their device work batched per
 window; InferBranchLengths runs one vmapped MCMC chain batch per section;
 chunks are the data-parallel (multi-host) axis.
 """
@@ -89,11 +89,11 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
     ``mesh``: optional device mesh. Sections (windows) are INDEPENDENT
     work units — each builds its tree sequence from its own checkpoint —
     so with a mesh they are dispatched whole-section-per-device round-
-    robin over the mesh's devices (SURVEY §2.5's "windows over ICI";
+    robin over the mesh's devices (SURVEY §2.5's windows over devices;
     the reference's job arrays, Relate.cpp:95-115). Outputs are
     placement-independent (per-section seeds), so the parallel path is
-    byte-identical to the serial one. Set RELATE_TPU_SECTION_PARALLEL=0
-    to fall back to sharding the RePaint target axis instead."""
+    byte-identical to the serial one. Each card runs unsharded programs,
+    so the merge-scan kernel never runs replicated on every card."""
     ch = store.load_chunk(c)
     model = painting.PaintingModel(N=ch.N, theta=theta)
     bounds = ch.windows.boundaries
@@ -109,12 +109,7 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
     use_device = ancestral_state and ages is None
     kernel = None
 
-    sec_par = (mesh is not None and use_device
-               and os.environ.get("RELATE_TPU_SECTION_PARALLEL", "1") != "0"
-               and int(mesh.devices.size) > 1
-               and (last_section - first_section + 1)
-               >= int(mesh.devices.size))
-    if sec_par:
+    if mesh is not None and use_device and int(mesh.devices.size) > 1:
         return _build_topology_section_parallel(
             store, c, ch, model, bounds, W, first_section, last_section,
             sec_seeds, mesh, theta, rho_scale, mode, fb, ages, cache)
@@ -122,8 +117,8 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
 
     # overlap the host-bound ends of each section (checkpoint npz load,
     # .anc/.mut writes) with the NEXT section's device build — the
-    # TPU-native replacement for the reference's section job arrays
-    # (RelateParallel.sh:280-396; VERDICT r3 #9). Device dispatches stay
+    # replacement for the reference's section job arrays
+    # (RelateParallel.sh:280-396). Device dispatches stay
     # strictly ordered (same seeds, same outputs as the serial loop).
     from concurrent.futures import ThreadPoolExecutor
     windows = list(range(first_section, last_section + 1))
@@ -174,12 +169,12 @@ def build_topology(store: ArtifactStore, c: int, seed: int = 1,
                     sample_ages=ages)
             t_dev += _time.time() - t0
             # free this window's device-resident checkpoint slabs NOW: the
-            # handoff list pins 2 x (Npad, Bp) f32 per window in HBM, and
-            # holding all W of them through the build (plus the ~GB-scale
-            # transient repaint cubes) exhausted HBM at N=2048 x 80 windows
-            # — the allocator stall presented as a silent hang mid-stage.
-            # Host copies were materialized by paint()'s npz write, so
-            # dropping the device refs costs nothing.
+            # handoff list pins 2 x (B, N) f32 per window on the device,
+            # and holding all W of them through the build (plus the
+            # GB-scale transient repaint cubes) can exhaust device memory
+            # at N=2048 x 80 windows. Host copies were materialized by
+            # paint()'s npz write, so dropping the device refs costs
+            # nothing.
             if cps_mem is not None and cp.a0_dev is not None:
                 cp.alpha, cp.beta  # noqa: B018 — force host materialization
                 cp.a0_dev = None
@@ -226,11 +221,14 @@ def _build_topology_section_parallel(store, c, ch, model, bounds, W,
         cp = cps_mem[w] if cps_mem is not None \
             else load_checkpoint(store, c, w)
         if cp.a0_dev is not None and cp.a0_dev.devices() != {dev}:
+            # mesh-painted slabs are sharded with rows padded to the
+            # device count; this card's painter wants its own (N, N)
+            n = cp._n
             cp = painting.Checkpoint(
                 alpha=cp._alpha, beta=cp._beta, ls_alpha=cp.ls_alpha,
                 ls_beta=cp.ls_beta, bsb=cp.bsb, bse=cp.bse,
-                a0_dev=jax.device_put(cp.a0_dev, dev),
-                be_dev=jax.device_put(cp.be_dev, dev), n=cp._n)
+                a0_dev=jax.device_put(cp.a0_dev[:n], dev),
+                be_dev=jax.device_put(cp.be_dev[:n], dev), n=n)
         return cp
 
     def _run_dev(k):
@@ -246,7 +244,8 @@ def _build_topology_section_parallel(store, c, ch, model, bounds, W,
                     ch.bp, start, end, seed=int(sec_seeds[w]), mode=mode,
                     fb=fb, kernel=kernel)
                 # drop the consumed window's device slabs (see the serial
-                # loop: pinning all W of them through the stage OOMs HBM)
+                # loop: pinning all W of them through the stage can run
+                # the device out of memory)
                 if cps_mem is not None and cps_mem[w].a0_dev is not None:
                     cps_mem[w].alpha, cps_mem[w].beta  # noqa: B018
                     cps_mem[w].a0_dev = None
@@ -634,9 +633,9 @@ def run_all(haps_path: str, sample_path: str, map_path: str, output: str,
 
     Distribution (replacing the reference's SGE/Slurm/LSF job arrays,
     SURVEY §2.5): with ``mesh``, painting targets and MCMC tree batches are
-    sharded over the mesh devices (ICI); under multi-process JAX, chunks
-    are round-robined over hosts (DCN — each host paints/builds its
-    chunks against its own replica of the panel) and host 0 performs the
+    sharded over the mesh devices; under multi-process JAX, chunks
+    are round-robined over processes (each paints/builds its chunks
+    against its own replica of the panel) and host 0 performs the
     Finalize merge once all chunk artifacts exist in the shared store."""
     import jax as _jax
     store = ArtifactStore(output + ".tmpdir")

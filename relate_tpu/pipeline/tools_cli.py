@@ -54,7 +54,7 @@ def _chr_list(args):
 
 
 def _mesh_of(args):
-    """Device mesh from --devices N (the ICI sharding axis for the EM's
+    """Device mesh from --devices N (the device sharding axis for the EM's
     psum-reduced statistics and sampled chains); None single-device."""
     if getattr(args, "devices", 0):
         from ..parallel.mesh import default_mesh

@@ -26,14 +26,13 @@ def mw_dir(tmp_path_factory):
 
 
 @pytest.mark.golden
-def test_planner_matches_reference(mw_dir):
+def test_planner_matches_reference(mw_dir, golden_chunk):
     """plan_chunks_and_windows must reproduce the reference's chunk and
     window boundaries byte-for-byte (here with --memory 0.001: 5 chunks,
-    4 windows in chunk 0)."""
-    from relate_tpu.io import haps as hio
-    data = hio.read_haps('/root/reference/example/data/example.haps.gz',
-                         '/root/reference/example/data/example.sample.gz')
-    plan, wplans = chunking.plan_chunks_and_windows(data.genotypes, 0.001)
+    4 windows in chunk 0). The default-memory golden chunk_0 is the
+    reference's single chunk over the whole example (all 130,862 SNPs), so
+    its panel is the example's genotype matrix."""
+    plan, wplans = chunking.plan_chunks_and_windows(golden_chunk.G, 0.001)
     ref = chunking.read_reference_parameters(str(mw_dir / "parameters.bin"))
     assert plan.start == ref["start"]
     assert plan.end == ref["end"]

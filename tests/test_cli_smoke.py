@@ -367,7 +367,7 @@ def test_run_all_threads_identical(tmp_path, monkeypatch):
 
 
 def test_run_all_two_host_processes_identical(tmp_path):
-    """The DCN branch of run_all (VERDICT r3 #5): two REAL OS processes,
+    """The multi-process branch of run_all: two REAL OS processes,
     coordinated only through the shared artifact store (host identity via
     RELATE_TPU_NUM_HOSTS/HOST_ID — the filesystem-launch model replacing
     the reference's job arrays), must produce the same final .anc/.mut as

@@ -60,11 +60,10 @@ def test_buildtopology_matches_reference(golden_dir, golden_chunk):
         painter, cps[0], ch.G, ch.rpos, ch.state, ch.bp,
         0, E_SUB, seed=1)
 
-    # measured r4 (CPU XLA merge path, seed 1): tree ratio
-    # 1240/1205 = 1.029, clade agreement 1.000 — thresholds tightened to
-    # well inside the old 0.85-1.15 / 0.70 slack (VERDICT r3 #8) so a
-    # real quality regression fails; the Pallas path differs only in
-    # tie-break draws (seed-level noise)
+    # CPU XLA merge path, seed 1: tree ratio 1240/1205 = 1.029, clade
+    # agreement 1.000 — thresholds well inside the old 0.85-1.15 / 0.70
+    # slack so a real quality regression fails; the GPU merge kernel
+    # differs only in tie-break draws (seed-level noise)
     hi = E_SUB - MARGIN
     ours_trees = sum(1 for mt in res.anc.seq if mt.pos < hi)
     ref_trees = sum(1 for mt in ref_anc.seq if mt.pos < hi)
@@ -80,19 +79,19 @@ def test_buildtopology_matches_reference(golden_dir, golden_chunk):
     assert agree >= 0.78, f"clade agreement {agree:.3f}"
 
 
-# NOTE: the Pallas merge path's golden gate runs in bench.py on the real
-# TPU (field ``golden_pallas_clade_agreement``) — interpret-mode emulation
-# of the kernels through a 4k-SNP section costs >30min of CPU, too slow
-# for this suite. The kernels' exact semantics are separately pinned by
-# tests/test_merge_inc.py (bit-exact NumPy twin) and test_pallas.py.
+# NOTE: the merge kernel's golden gate runs on the card in chip_smoke.py
+# (phase 3). Its exact semantics are pinned here on the CPU by
+# tests/test_merge_inc.py (interpret mode vs the bit-exact NumPy twin).
 
 
 @pytest.mark.golden
 @pytest.mark.slow
-def test_run_all_matches_golden(golden_dir, tmp_path):
+def test_run_all_matches_golden(golden_dir, golden_chunk, tmp_path):
     """Full pipeline on the example chromosome vs the reference's final
-    .anc/.mut (README parity numbers, now enforced)."""
+    .anc/.mut (README parity numbers, now enforced). The input panel is
+    the golden chunk_0, which spans the whole example."""
     from relate_tpu.pipeline import relate
+    from relate_tpu.utils.synth import write_haps_sample
 
     mapf = tmp_path / "flat.map"
     with open(mapf, "w") as f:
@@ -100,9 +99,10 @@ def test_run_all_matches_golden(golden_dir, tmp_path):
         for bp in range(0, 250000001, 1000000):
             f.write(f"{bp} 1.0 {bp / 1e6}\n")
     out = str(tmp_path / "e2e")
-    relate.run_all("/root/reference/example/data/example.haps.gz",
-                   "/root/reference/example/data/example.sample.gz",
-                   str(mapf), out, seed=1, verbose=False)
+    prefix = str(tmp_path / "example")
+    write_haps_sample(golden_chunk.G, golden_chunk.bp, prefix)
+    relate.run_all(prefix + ".haps", prefix + ".sample", str(mapf), out,
+                   seed=1, verbose=False)
 
     ours_anc = ancmut.read_anc_text(out + ".anc")
     ours_mut = ancmut.read_mut_final(out + ".mut")
@@ -152,7 +152,7 @@ def test_run_all_matches_golden(golden_dir, tmp_path):
 
 
 @pytest.mark.golden
-def test_postprocess_matches_reference(golden_dir):
+def test_postprocess_matches_reference(golden_dir, golden_chunk):
     """Full PostProcess on the golden final anc/mut vs the reference
     binary's `Relate --mode PostProcess` on the same input
     (PostProcess.cpp:311): the rearranged trees must re-map mutations to
@@ -162,10 +162,8 @@ def test_postprocess_matches_reference(golden_dir):
 
     anc, recs, bp, dist, rsid, alleles = _load_pair(
         str(golden_dir / "golden"))
-    from relate_tpu.io import haps as hio
-    data = hio.read_haps("/root/reference/example/data/example.haps.gz",
-                         "/root/reference/example/data/example.sample.gz")
-    n_up = post_process(anc, recs, data.genotypes, bp, seed=1)
+    # the golden chunk_0 spans the whole example: its panel is the input
+    n_up = post_process(anc, recs, golden_chunk.G, bp, seed=1)
     assert n_up > 0  # the pass must actually rearrange something
 
     ref_anc = ancmut.read_anc_text(str(golden_dir / "pp_golden.anc"))

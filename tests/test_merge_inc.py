@@ -1,6 +1,7 @@
 """Incremental merge-scan kernel vs its NumPy twin and the XLA twin.
 
-Run in interpret mode on CPU (conftest forces the CPU backend). With
+The Triton kernel runs in interpret mode on CPU (conftest forces the CPU
+backend). With
 continuous random distances every minimum is unique, so tie-break sources
 are irrelevant and all implementations must agree exactly wherever their
 semantics coincide:
@@ -8,11 +9,11 @@ semantics coincide:
 - no CF prior: incremental == XLA twin == NumPy twin (exact merge lists)
 - with CF prior: incremental == NumPy twin (the kernel keeps the
   REFERENCE's stale CF row-minima — tree_builder.cpp:2483-2510 — while the
-  XLA twin refreshes them每 step, a documented deviation)
-- negative threshold: no pair is ever mutual -> the streamed fallback-sym
-  path runs every step
-- small KP forces pending-cache flushes mid-scan: the exact-split MXU
-  scatter must preserve bit-exact f32 values
+  XLA twin refreshes them every step, a documented deviation)
+- negative threshold: no pair is ever mutual -> the fallback-sym path runs
+  every step
+- several tie-hash seeds: the kernel's in-kernel hash must match the
+  host twin's for every pair
 """
 import numpy as np
 import jax
@@ -39,7 +40,7 @@ def test_inc_matches_xla_no_cf(threshold, N):
     dcf = np.zeros_like(d)
     cis_i, cjs_i, _ = merge_scan_incremental(
         jnp.asarray(d), jnp.asarray(dcf), False, threshold, 1e-6, 7,
-        kp=8, interpret=True)
+        interpret=True)
     cis_x, cjs_x, _ = _merge_scan(
         jnp.asarray(d), jnp.asarray(dcf), jnp.bool_(False),
         jnp.float32(threshold), jnp.float32(1e-6), jax.random.PRNGKey(7))
@@ -48,16 +49,16 @@ def test_inc_matches_xla_no_cf(threshold, N):
 
 
 @pytest.mark.parametrize("use_cf", [False, True])
-@pytest.mark.parametrize("kp", [8, 64])
-def test_inc_matches_host_twin(use_cf, kp):
+@pytest.mark.parametrize("seed", [8, 64])
+def test_inc_matches_host_twin(use_cf, seed):
     N = 40
     d = _rand(N, 3)
     dcf = _rand(N, 4, scale=10.0)
     thr, thrcf = 2.0, 0.5
     cis_i, cjs_i, _ = merge_scan_incremental(
-        jnp.asarray(d), jnp.asarray(dcf), use_cf, thr, thrcf, 11,
-        kp=kp, interpret=True)
-    cis_h, cjs_h = merge_scan_inc_host(d, dcf, use_cf, thr, thrcf, 11)
+        jnp.asarray(d), jnp.asarray(dcf), use_cf, thr, thrcf, seed,
+        interpret=True)
+    cis_h, cjs_h = merge_scan_inc_host(d, dcf, use_cf, thr, thrcf, seed)
     assert np.array_equal(np.asarray(cis_i), cis_h)
     assert np.array_equal(np.asarray(cjs_i), cjs_h)
 
@@ -70,7 +71,7 @@ def test_inc_fallback_path():
     dcf = np.zeros_like(d)
     cis_i, cjs_i, _ = merge_scan_incremental(
         jnp.asarray(d), jnp.asarray(dcf), False, -1.0, 1e-6, 2,
-        kp=8, interpret=True)
+        interpret=True)
     cis_h, cjs_h = merge_scan_inc_host(d, dcf, False, -1.0, 1e-6, 2)
     assert np.array_equal(np.asarray(cis_i), cis_h)
     assert np.array_equal(np.asarray(cjs_i), cjs_h)
@@ -87,7 +88,7 @@ def test_inc_valid_tree():
     d = _rand(N, 9)
     cis, cjs, clades = merge_scan_incremental(
         jnp.asarray(d), jnp.asarray(np.zeros_like(d)), False, 1.0, 1e-6, 1,
-        kp=16, interpret=True)
+        interpret=True)
     tr = tree_from_merges(np.asarray(cis), np.asarray(cjs), N)
     # every node except the root has a parent; clades partition correctly
     assert (tr.parent[:-1] >= N).all()

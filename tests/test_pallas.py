@@ -1,74 +1,43 @@
-"""Pallas merge-scan kernel vs its XLA twin (interpret mode on CPU)."""
+"""Pallas kernels (Triton route) vs their plain twins, in interpret mode on
+the CPU, plus the CPU-side rules around them: the merge-scan dispatch by N,
+the paint kernels' power-of-two lane blocks and the device planner."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from relate_tpu.ops.merge_scan import merge_scan_pallas
-from relate_tpu.core.topology_device import _merge_scan
+from relate_tpu.core import topology_device
+from relate_tpu.ops import paint_kernels
 
 
-@pytest.mark.parametrize("threshold", [1e-6, 5.0])
-def test_merge_scan_pallas_matches_xla(threshold):
-    # continuous random distances -> unique minima -> tie draws irrelevant,
-    # so the two implementations must agree exactly despite different RNGs
-    rng = np.random.default_rng(0)
-    N = 40
-    d = rng.random((N, N)).astype(np.float32) * 100
-    np.fill_diagonal(d, 0)
-    dcf = rng.random((N, N)).astype(np.float32) * 100
-    cis_p, cjs_p, cl_p = merge_scan_pallas(
-        jnp.asarray(d), jnp.asarray(dcf), False, threshold, 1e-6, 7,
-        interpret=True)
-    cis_x, cjs_x, cl_x = _merge_scan(
-        jnp.asarray(d), jnp.asarray(dcf), jnp.bool_(False),
-        jnp.float32(threshold), jnp.float32(1e-6), jax.random.PRNGKey(7))
-    assert np.array_equal(np.asarray(cis_p), np.asarray(cis_x))
-    assert np.array_equal(np.asarray(cjs_p), np.asarray(cjs_x))
-    assert np.array_equal(np.asarray(cl_p), np.asarray(cl_x))
+@pytest.mark.parametrize("N,backend,expect", [
+    (8, "gpu", True), (5008, "gpu", True), (8, "cpu", False),
+    (5008, "cpu", False)])
+def test_merge_dispatch_by_n(N, backend, expect, monkeypatch):
+    """A GPU's section builder merges with the incremental kernel at every
+    N; every other backend uses the XLA twin."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    topology_device._KERNEL_CACHE.clear()
+    topology_device.make_section_kernel(0.001, N, 64, 1)
+    (key,) = topology_device._KERNEL_CACHE
+    topology_device._KERNEL_CACHE.clear()
+    assert key[1] == N and key[4] is expect
 
 
-def test_merge_scan_pallas_cf_mode_structurally_valid():
-    rng = np.random.default_rng(1)
-    N = 33  # deliberately not a multiple of 8/128: exercises padding
-    d = rng.random((N, N)).astype(np.float32) * 100
-    np.fill_diagonal(d, 0)
-    dcf = rng.random((N, N)).astype(np.float32) * 100
-    cis, cjs, clades = merge_scan_pallas(
-        jnp.asarray(d), jnp.asarray(dcf), True, 5.0, 5.0, 11,
-        interpret=True)
-    cis = np.asarray(cis)
-    cjs = np.asarray(cjs)
-    clades = np.asarray(clades)
-    live = set(range(N))
-    for t in range(N - 1):
-        a, b = int(cis[t]), int(cjs[t])
-        assert a in live and b in live and a != b
-        live.discard(a)
-        live.discard(b)
-        live.add(N + t)
-    assert live == {2 * N - 2}
-    assert clades[-1].sum() == N
+def test_section_kernel_cache_keys_on_merge_path():
+    """Kernel and XLA merge paths compile distinct section programs."""
+    a = topology_device.make_section_kernel(0.001, 8, 64, 1,
+                                            use_kernel=False)
+    b = topology_device.make_section_kernel(0.001, 8, 64, 1,
+                                            use_kernel=True, interpret=True)
+    assert a is not b
+    assert a is topology_device.make_section_kernel(0.001, 8, 64, 1,
+                                                    use_kernel=False)
 
 
-def test_merge_scan_large_variant_matches_small(monkeypatch):
-    """The HBM-input large-N kernel (same tie-break hash, clades rebuilt
-    off-chip) must produce IDENTICAL merges and clades to the all-VMEM
-    kernel for the same seed — the N>1024 fast path is not a silent
-    approximation (VERDICT r4 #2)."""
-    monkeypatch.delenv("RELATE_TPU_MERGE_LARGE", raising=False)
-    rng = np.random.default_rng(5)
-    N = 48
-    d = rng.random((N, N)).astype(np.float32) * 100
-    np.fill_diagonal(d, 0)
-    dcf = rng.random((N, N)).astype(np.float32) * 100
-    small = merge_scan_pallas(jnp.asarray(d), jnp.asarray(dcf), True,
-                              5.0, 5.0, 13, interpret=True)
-    monkeypatch.setenv("RELATE_TPU_MERGE_LARGE", "1")
-    large = merge_scan_pallas(jnp.asarray(d), jnp.asarray(dcf), True,
-                              5.0, 5.0, 13, interpret=True)
-    for a, b in zip(small, large):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
+@pytest.mark.parametrize("n,np_", [(8, 16), (5008, 8192)])
+def test_paint_lane_block_is_pow2(n, np_):
+    assert paint_kernels.pow2_lanes(n) == np_
 
 
 # ---------------------------------------------------------------------------
@@ -84,68 +53,101 @@ def _paint_fixture(seed=3, N=8, L=64):
     return painting, G, r, model
 
 
-def _kernel_inputs(painting, G, r, model, plan, alpha0, beta_end,
-                   Bp=128, Np=32):
-    """Assemble padded kernel-layout inputs from a host TargetPlan."""
+def _scan_reference(painting, G, r, model, plan):
     L, N = G.shape
-    B, Dmax = plan.idx.shape
-    idx = np.zeros((Bp, Dmax), np.int32); idx[:B] = plan.idx
-    seqk = np.zeros((Bp, Dmax), np.uint8); seqk[:B] = plan.seqk
-    D = np.zeros(Bp, np.int32); D[:B] = plan.D
-    Gp = np.zeros((L, Np), np.uint8); Gp[:, :N] = G
-    grows = Gp[idx.T.reshape(-1)].reshape(Dmax, Bp, Np)
-    mism = (seqk.T[:, :, None] > grows).astype(np.int8).transpose(0, 2, 1)
-    pfacT = np.zeros((Dmax, Bp), np.float32); pfacT[:, :B] = plan.pfac.T
-    nxtT = np.zeros((Dmax, Bp), np.float32); nxtT[:, :B] = plan.nxt.T
-    z = np.zeros((1, Bp), np.float32)
-    shifts = (np.concatenate([z, pfacT[:-1]]), np.concatenate([z, nxtT[:-1]]),
-              np.concatenate([pfacT[1:], z]), np.concatenate([nxtT[1:], z]))
-    a0 = np.zeros((Np, Bp), np.float32); a0[:N, :B] = np.asarray(alpha0).T
-    be = np.zeros((Np, Bp), np.float32); be[:N, :B] = np.asarray(beta_end).T
-    kmask = np.zeros((Np, Bp), np.float32)
-    for b in range(B):
-        kmask[:N, b] = plan.kmask[b]
-    return D, mism, shifts, a0, be, kmask
+    alpha0 = painting.initial_alpha(G, model, 0, np.arange(N, dtype=np.int32))
+    beta_end = np.ones((N, N), np.float32)
+    painter = painting.Painter(G, r, model, use_kernel=False)
+    dev = painter._plan_dev(plan)
+    a_all, lss = painter._run_fwd(plan, alpha0, dev)
+    out = painter._run_bwd(plan, a_all, lss, beta_end, dev)
+    args = tuple(jnp.asarray(x) for x in (
+        G, plan.idx, plan.seqk, plan.pfac, plan.nxt, plan.D, plan.targets))
+    return (alpha0, beta_end, args,
+            tuple(np.asarray(x) for x in (a_all, lss) + tuple(out)))
 
 
 def test_paint_pallas_kernels_match_scan():
     """fwd/bwd Pallas kernels (interpret) == the lax.scan twins on all
     valid rows; backward padding rows are zero by contract."""
-    from relate_tpu.ops import paint_kernels
     painting, G, r, model = _paint_fixture()
-    L, N = G.shape
-    plan = painting.build_target_plan(G, r, model, 0, L - 1)
-    alpha0 = painting.initial_alpha(G, model, 0, np.arange(N, dtype=np.int32))
-    beta_end = np.ones((N, N), np.float32)
-    painter = painting.Painter(G, r, model)
-    dev = painter._plan_dev(plan)
-    a_all, lss = painter._run_fwd(plan, alpha0, dev)
-    topo_s, lstot_s, _, _ = painter._run_bwd(plan, a_all, lss, beta_end, dev)
-    a_all, lss = np.asarray(a_all), np.asarray(lss)
-    topo_s, lstot_s = np.asarray(topo_s), np.asarray(lstot_s)
-
-    D, mism, shifts, a0, be, kmask = _kernel_inputs(
-        painting, G, r, model, plan, alpha0, beta_end)
-    pfacm1, nxtm1, pfacp1, nxtp1 = (jnp.asarray(x) for x in shifts)
-    al_k, ls_k = paint_kernels.fwd_pallas(
-        jnp.asarray(D[None, :]), jnp.asarray(a0), jnp.asarray(kmask),
-        jnp.asarray(mism), pfacm1, nxtm1, theta=model.theta, interpret=True)
-    topo_k, lstot_k = paint_kernels.bwd_pallas(
-        jnp.asarray(D[None, :]), jnp.asarray(be), jnp.asarray(kmask),
-        jnp.asarray(mism), pfacp1, nxtp1, al_k, ls_k,
-        theta=model.theta, interpret=True)
+    plan = painting.build_target_plan(G, r, model, 0, G.shape[0] - 1)
+    alpha0, beta_end, args, ref = _scan_reference(painting, G, r, model,
+                                                  plan)
+    a_all, lss, topo_s, lstot_s, _, _ = ref
+    al_k, ls_k = paint_kernels.paint_fwd(
+        *args, jnp.asarray(alpha0), theta=model.theta, interpret=True)
+    topo_k, lstot_k = paint_kernels.paint_bwd(
+        *args, jnp.asarray(beta_end), al_k, ls_k, theta=model.theta,
+        interpret=True)
     al_k, ls_k = np.asarray(al_k), np.asarray(ls_k)
     topo_k, lstot_k = np.asarray(topo_k), np.asarray(lstot_k)
-    for b in range(N):
+    for b in range(G.shape[1]):
         d = plan.D[b]
-        np.testing.assert_allclose(al_k[:d, :N, b], a_all[:d, b, :],
+        np.testing.assert_allclose(al_k[:d, b], a_all[:d, b],
                                    rtol=1e-5, atol=1e-30)
         np.testing.assert_allclose(ls_k[:d, b], lss[:d, b],
                                    rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(topo_k[:d, :N, b], topo_s[:d, b, :],
+        np.testing.assert_allclose(topo_k[:d, b], topo_s[:d, b],
                                    rtol=1e-5, atol=1e-30)
         np.testing.assert_allclose(lstot_k[:d, b], lstot_s[:d, b],
                                    rtol=1e-5, atol=1e-4)
+        assert (topo_k[d:, b] == 0).all() and (lstot_k[d:, b] == 0).all()
+
+
+@pytest.mark.parametrize("N", [8, 12])
+def test_paint_capture_kernels_match_scan(N):
+    """The stepping-stone capture kernels emit exactly the scan twins' row
+    ``want[b]``; N=12 leaves 4 masked lanes in the 16-lane block."""
+    painting, G, r, model = _paint_fixture(seed=7, N=N, L=80)
+    plan = painting.build_target_plan(G, r, model, 0, G.shape[0] - 1)
+    alpha0, beta_end, args, ref = _scan_reference(painting, G, r, model,
+                                                  plan)
+    a_all, _, _, _, beta_all, lsb_all = ref
+    bidx = np.arange(N)
+    want = (plan.D // 2).astype(np.int32)
+    acap, _ = paint_kernels.paint_fwd_capture(
+        *args, jnp.asarray(want), jnp.asarray(alpha0), theta=model.theta,
+        interpret=True)
+    bcap, lbcap = paint_kernels.paint_bwd_capture(
+        *args, jnp.asarray(want), jnp.asarray(beta_end), theta=model.theta,
+        interpret=True)
+    np.testing.assert_allclose(np.asarray(acap), a_all[want, bidx],
+                               rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(np.asarray(bcap), beta_all[want, bidx],
+                               rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(np.asarray(lbcap), lsb_all[want, bidx],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_painter_kernel_path_matches_scan():
+    """Painter with the kernels (stones over three windows, device slabs,
+    device planner, repaint) == the scan-twin Painter."""
+    from relate_tpu.core import painting
+    rng = np.random.default_rng(2)
+    N, L = 10, 240
+    G = (rng.random((L, N)) < 0.3).astype(np.uint8)
+    r = rng.random(L) * 1e-3
+    model = painting.PaintingModel(N=N, theta=0.001)
+    bounds = np.array([0, 80, 160, L])
+    p_s = painting.Painter(G, r, model, use_kernel=False)
+    p_k = painting.Painter(G, r, model, use_kernel=True, interpret=True)
+    cps_s = p_s.paint_stepping_stones(bounds)
+    cps_k = p_k.paint_stepping_stones(bounds)
+    for cs, ck in zip(cps_s, cps_k):
+        np.testing.assert_allclose(ck.alpha, cs.alpha, rtol=1e-5, atol=1e-30)
+        np.testing.assert_allclose(ck.beta, cs.beta, rtol=1e-5, atol=1e-30)
+        np.testing.assert_allclose(ck.ls_alpha, cs.ls_alpha, rtol=1e-5)
+        np.testing.assert_allclose(ck.ls_beta, cs.ls_beta, rtol=1e-5)
+    out_s = p_s.repaint(cps_s[1])
+    out_k = p_k.repaint(cps_k[1])
+    np.testing.assert_array_equal(np.asarray(out_k.plan.idx)[:, 0],
+                                  out_s.plan.idx[:, 0])
+    topo_s, topo_k = np.asarray(out_s.topology), np.asarray(out_k.topology)
+    for b in range(N):
+        d = out_s.plan.D[b]
+        np.testing.assert_allclose(topo_k[:d, b], topo_s[:d, b], rtol=1e-5,
+                                   atol=1e-30)
 
 
 def test_device_planner_matches_host_plan():
@@ -163,20 +165,14 @@ def test_device_planner_matches_host_plan():
     Dmax = int(plan.D.max())
     fin = np.full(N, r[L - 1], np.float32)
     GT = jnp.asarray(np.ascontiguousarray(G.T))
-    idx_d, seqk_d, D_d, mismT, shifts, kmaskT = planner(
-        jnp.asarray(G), GT, jnp.asarray(S_hi), jnp.asarray(S_lo),
+    idx_d, seqk_d, D_d, pfac_d, nxt_d = planner(
+        GT, jnp.asarray(S_hi), jnp.asarray(S_lo),
         jnp.asarray(targets), jnp.zeros(N, jnp.int32),
-        jnp.full(N, L - 1, jnp.int32), jnp.asarray(fin), N, Dmax=Dmax)
+        jnp.full(N, L - 1, jnp.int32), jnp.asarray(fin), Dmax=Dmax)
     assert np.array_equal(np.asarray(idx_d), plan.idx)
     assert np.array_equal(np.asarray(seqk_d), plan.seqk)
     assert np.array_equal(np.asarray(D_d), plan.D)
-    mism_ref = (plan.seqk.T[:, :, None]
-                > G[plan.idx.T]).astype(np.int8).transpose(0, 2, 1)
-    assert np.array_equal(np.asarray(mismT), mism_ref)
-    pfacm1 = np.asarray(shifts[0])
-    np.testing.assert_allclose(pfacm1[1:], plan.pfac.T[:-1], rtol=2e-5,
+    np.testing.assert_allclose(np.asarray(pfac_d), plan.pfac, rtol=2e-5,
                                atol=1e-12)
-    nxtm1 = np.asarray(shifts[1])
-    np.testing.assert_allclose(nxtm1[1:], plan.nxt.T[:-1], rtol=1e-5,
+    np.testing.assert_allclose(np.asarray(nxt_d), plan.nxt, rtol=1e-5,
                                atol=1e-6)
-    assert np.array_equal(np.asarray(kmaskT).T, plan.kmask)
